@@ -1,10 +1,12 @@
-"""Weight pre-packing (paper lever 2), fp32.
+"""Weight pre-packing (paper lever 2).
 
 A weight is packed once at model load into the layout the panel GEMM
 consumes: ``[K_pad, N_pad]`` row-major, zero-padded to block multiples
 (transposed first if it arrives as ``[N, K]``).  Packing is pure layout,
-so a pack equals the reference's ``repro.core.packing`` pack bit for bit.
-A pack whose weight needs no padding shares the weight's storage.
+so an fp32 pack equals the reference's ``repro.core.packing`` pack bit
+for bit.  A pack whose weight needs no padding shares the weight's
+storage.  ``quant=`` quantizes at pack time instead
+(``repro_torch.quant.formats``).
 """
 from __future__ import annotations
 
@@ -67,8 +69,25 @@ def fit_block(dim: int, want: int, lane: int = 128) -> int:
 def pack(w: torch.Tensor, *, transposed: bool = False,
          block_n: int = _kernel.DEFAULT_BLOCK_N,
          block_k: int = _kernel.DEFAULT_BLOCK_K,
-         dtype: torch.dtype | None = None) -> PackedWeight:
-    """Pack a weight once at model load (``transposed``: w is [N, K])."""
+         dtype: torch.dtype | None = None, quant: str | None = None,
+         sparse: bool | None = None) -> PackedWeight:
+    """Pack a weight once at model load (``transposed``: w is [N, K]).
+
+    ``quant`` ("int8" | "ternary") quantizes at pack time and returns a
+    ``QuantizedPackedWeight``, measured and tolerance-gated by the error
+    ledger; ``sparse`` is the ternary layout choice of
+    ``quant.formats.quantize_pack``."""
+    if quant is not None:
+        from repro_torch.quant.formats import quantize_pack
+        if dtype is not None:
+            raise ValueError("dtype casts do not compose with quant= "
+                             "(codes have a fixed storage type)")
+        return quantize_pack(w, quant, transposed=transposed,
+                             block_n=block_n, block_k=block_k,
+                             sparse=sparse)
+    if sparse:
+        raise ValueError("sparse= is a ternary pack-time lever; it "
+                         "requires quant='ternary'")
     if transposed:
         n, k = w.shape
         w = w.T
@@ -85,11 +104,23 @@ def pack(w: torch.Tensor, *, transposed: bool = False,
 def pack_fused(parts, *, transposed: bool = False,
                block_n: int = _kernel.DEFAULT_BLOCK_N,
                block_k: int = _kernel.DEFAULT_BLOCK_K,
-               dtype: torch.dtype | None = None) -> PackedWeight:
+               dtype: torch.dtype | None = None, quant: str | None = None,
+               sparse: bool | None = None) -> PackedWeight:
     """Horizontally fuse same-input weights into ONE pack: each part padded
     to a ``block_n`` multiple, then concatenated along N, so column tiles
     never straddle parts (a static split map, and the glu halves address
-    by tile offset)."""
+    by tile offset).  ``quant`` quantizes every part at pack time
+    (per-part scales), as ``pack(quant=)`` does."""
+    if quant is not None:
+        from repro_torch.quant.formats import quantize_pack_fused
+        if dtype is not None:
+            raise ValueError("dtype casts do not compose with quant=")
+        return quantize_pack_fused(parts, quant, transposed=transposed,
+                                   block_n=block_n, block_k=block_k,
+                                   sparse=sparse)
+    if sparse:
+        raise ValueError("sparse= is a ternary pack-time lever; it "
+                         "requires quant='ternary'")
     ws = [w.transpose(-1, -2) if transposed else w for w in parts]
     if len(ws) < 2:
         raise ValueError("pack_fused needs at least two weights; "

@@ -9,6 +9,11 @@
                  asked for by name.  It ignores the plan's blocking
                  (``needs_blocks=False``).
 
+Each also has ``run_quant`` for quantized packs: the dequant-fused kernels
+(``cuda``), their plain versions (``plain``), or dequantize-then-matmul
+(``torch``, the baseline).  A backend registered without ``run_quant``
+rejects quantized plans.
+
 ``register_backend`` is the extension hook; ``use_backend`` scopes a
 choice (the serving Engine wraps its steps in it).
 """
@@ -22,9 +27,13 @@ from typing import Callable, Iterator
 import torch
 
 from repro_torch.kernels import panel_gemm as _kernel
+from repro_torch.quant import formats as _formats
+from repro_torch.quant import kernels as _quant
 
 # run(x_p, w_p, *, block_m, block_n, block_k, out_dtype, [epilogue, bias,
 #     residual], [split_k]) -> y
+# run_quant(x_p, codes, scales, *, weight_format, block_m, block_n, block_k,
+#           out_dtype, [epilogue, bias, residual], [split_k]) -> y
 RunFn = Callable[..., torch.Tensor]
 
 
@@ -34,6 +43,7 @@ class Backend:
     run: RunFn
     needs_blocks: bool = True    # False: shape-agnostic, skip block padding
     description: str = ""
+    run_quant: RunFn | None = None   # None: rejects quantized plans
 
 
 _REGISTRY: dict[str, Backend] = {}
@@ -46,15 +56,16 @@ class UnknownBackendError(KeyError):
 
 
 def register_backend(name: str, run: RunFn, *, needs_blocks: bool = True,
-                     description: str = "",
-                     overwrite: bool = False) -> Backend:
-    """Register a GEMM backend under ``name`` (the extension hook)."""
+                     description: str = "", overwrite: bool = False,
+                     run_quant: RunFn | None = None) -> Backend:
+    """Register a GEMM backend under ``name`` (the extension hook);
+    ``run_quant`` is its dequant-fused run for quantized packs."""
     with _LOCK:
         if name in _REGISTRY and not overwrite:
             raise ValueError(f"backend {name!r} already registered; "
                              f"pass overwrite=True to replace it")
         b = Backend(name=name, run=run, needs_blocks=needs_blocks,
-                    description=description)
+                    description=description, run_quant=run_quant)
         _REGISTRY[name] = b
         return b
 
@@ -150,10 +161,49 @@ def _run_torch(x_p, w_p, *, block_m, block_n, block_k, out_dtype,
     return acc.to(out_dtype or x_p.dtype)
 
 
+def _run_quant_cuda(x_p, codes, scales, *, weight_format, block_m, block_n,
+                   block_k, out_dtype, epilogue=None, bias=None,
+                   residual=None, split_k=1):
+    _need_cuda("cuda", x_p)
+    kw = dict(weight_format=weight_format, block_m=block_m,
+              block_n=block_n, block_k=block_k, out_dtype=out_dtype,
+              epilogue=epilogue)
+    if split_k > 1:
+        return _quant.quant_panel_gemm_splitk(x_p, codes, scales, bias,
+                                              residual, split_k=split_k,
+                                              **kw)
+    return _quant.quant_panel_gemm(x_p, codes, scales, bias, residual, **kw)
+
+
+def _run_quant_plain(x_p, codes, scales, *, weight_format, block_m, block_n,
+                     block_k, out_dtype, epilogue=None, bias=None,
+                     residual=None, split_k=1):
+    del block_m, block_n
+    return _quant.quant_panel_gemm_splitk_plain(
+        x_p, codes, scales, bias, residual, weight_format=weight_format,
+        split_k=split_k, block_k=block_k, out_dtype=out_dtype,
+        epilogue=epilogue)
+
+
+def _run_quant_torch(x_p, codes, scales, *, weight_format, block_m, block_n,
+                     block_k, out_dtype, epilogue=None, bias=None,
+                     residual=None, split_k=1):
+    """The dequantize-then-matmul baseline: the fp32 weight is made in
+    device memory, then the ``torch`` run multiplies it."""
+    w = _formats.dequantize_padded(codes, scales, weight_format)
+    return _run_torch(x_p, w, block_m=block_m, block_n=block_n,
+                      block_k=block_k, out_dtype=out_dtype,
+                      epilogue=epilogue, bias=bias, residual=residual,
+                      split_k=split_k)
+
+
 register_backend("cuda", _run_cuda,
-                 description="hand-written CUDA panel kernels (sm_90a)")
+                 description="hand-written CUDA panel kernels (sm_90a)",
+                 run_quant=_run_quant_cuda)
 register_backend("plain", _run_plain,
                  description="fixed-tile emulator (the kernels' plain "
-                             "versions; CPU operands)")
+                             "versions; CPU operands)",
+                 run_quant=_run_quant_plain)
 register_backend("torch", _run_torch, needs_blocks=False,
-                 description="torch.matmul + epilogue (library baseline)")
+                 description="torch.matmul + epilogue (library baseline)",
+                 run_quant=_run_quant_torch)

@@ -3,7 +3,8 @@
 The weight may be a ``PackedWeight`` (paid once at load: per call only
 the activations are padded) or a raw tensor (``[K, N]``, or ``[N, K]``
 when the plan was built with ``transposed=True``), packed inside the call
-as the per-call baseline does.
+as the per-call baseline does.  A ``QuantizedPackedWeight`` runs through
+the backend's dequant-fused ``run_quant``.
 """
 from __future__ import annotations
 
@@ -14,6 +15,9 @@ from repro_torch.core import packing
 from repro_torch.gemm import backends as _backends
 from repro_torch.gemm.plan import GemmPlan, PACK_NONE
 from repro_torch.gemm.policy import _bitexact_gate
+from repro_torch.quant import ledger as _ledger
+from repro_torch.quant.formats import QuantizedPackedWeight
+from repro_torch.quant.kernels import quant_gate
 
 
 class PlanMismatchError(ValueError):
@@ -67,6 +71,15 @@ def execute(p: GemmPlan, x: torch.Tensor, w, *, bias=None, residual=None,
     _check(m == p.m, f"operand M={m} vs plan M={p.m}; plans are "
                      f"shape-resolved -- re-plan for this batch")
 
+    quant = isinstance(w, QuantizedPackedWeight)
+    _check(quant == p.quantized,
+           f"operand {'is' if quant else 'is not'} a quantized pack but "
+           f"plan weight_format={p.weight_format!r} ({p.describe()}); "
+           f"re-plan via plan_for_packed")
+    if quant:
+        _check(w.fmt == p.weight_format,
+               f"pack format {w.fmt!r} vs plan "
+               f"weight_format={p.weight_format!r}")
     if isinstance(w, packing.PackedWeight):
         _check((w.k, w.n) == (p.k, p.n),
                f"packed weight {w.shape} vs plan ({p.k},{p.n})")
@@ -88,7 +101,9 @@ def execute(p: GemmPlan, x: torch.Tensor, w, *, bias=None, residual=None,
         else:
             w_p = ww
 
-    k_pad, n_pad = w_p.shape
+    # a ternary pack stores four K rows per codes row
+    k_pad = w.k_pad if quant else w_p.shape[0]
+    n_pad = w_p.shape[1]
     if k_pad != p.k:                 # weight K was pack-padded: pad x too
         x2 = _pad_cols(x2, k_pad)
     if backend.needs_blocks:
@@ -138,8 +153,19 @@ def execute(p: GemmPlan, x: torch.Tensor, w, *, bias=None, residual=None,
             r2 = r2.contiguous()
         kw.update(epilogue=spec, bias=b2, residual=r2)
 
-    y = backend.run(x2, w_p, block_m=p.block_m, block_n=p.block_n,
-                    block_k=p.block_k, out_dtype=out_dtype or x.dtype, **kw)
+    out_dtype = out_dtype or x.dtype
+    if quant:
+        _check(backend.run_quant is not None,
+               f"backend {p.backend!r} has no dequant-fused run "
+               f"(register_backend(..., run_quant=)); it cannot execute "
+               f"weight_format={p.weight_format!r} plans")
+        y = backend.run_quant(x2, w_p, w.scales,
+                              weight_format=p.weight_format,
+                              block_m=p.block_m, block_n=p.block_n,
+                              block_k=p.block_k, out_dtype=out_dtype, **kw)
+    else:
+        y = backend.run(x2, w_p, block_m=p.block_m, block_n=p.block_n,
+                        block_k=p.block_k, out_dtype=out_dtype, **kw)
     return y[:m, :p.n_out].reshape(*lead, p.n_out)
 
 
@@ -172,6 +198,15 @@ def validate_plan(p: GemmPlan) -> bool:
     """The (memoised) bit-exactness gate on the plan's block triple,
     epilogue and split-K, run on the plain emulator: the fused path must
     be bit-identical to the unfused ``accumulator -> apply_epilogue``
-    sequence."""
+    sequence.  A quantized plan is rejected when its ledger entry exceeds
+    the format's tolerance, and otherwise gated by ``quant_gate`` (the
+    dequant-fused plain path against the oracle over the dequantized
+    panels)."""
+    if p.quantized:
+        ent = _ledger.lookup(p.n, p.k, p.weight_format)
+        if ent is not None and not ent.within_tol:
+            return False
+        return quant_gate(p.block_m, p.block_n, p.block_k, p.weight_format,
+                          epilogue=p.epilogue, split_k=p.split_k)
     return _bitexact_gate(p.block_m, p.block_n, p.block_k,
                           epilogue=p.epilogue, split_k=p.split_k)

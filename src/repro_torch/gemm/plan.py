@@ -1,8 +1,9 @@
 """``GemmPlan``: the frozen, hashable description of one GEMM dispatch --
 everything decided above the inner loop, resolved once per shape and
 reused on every call: geometry, backend, the block triple, the pack
-decision, the lever that produced it, the epilogue, the fused split map
-and the decode lane's split-K slice count.
+decision, the lever that produced it, the epilogue, the fused split map,
+the decode lane's split-K slice count and the weight's pack-time format
+(fp32, or a quantized format run by the dequant-fused kernels).
 """
 from __future__ import annotations
 
@@ -29,7 +30,8 @@ class GemmPlan:
     GEMM); ``fused_n_splits`` the split map of a ``pack_fused`` weight;
     ``decode`` marks a plan of the decode arm and ``split_k`` its K slice
     count, resolved per (n, k) at the canonical decode M so that every
-    decode batch width shares one slice map."""
+    decode batch width shares one slice map.  ``weight_format`` is
+    ``"fp32"`` or the quantized format of the pack the plan executes."""
     m: int
     n: int
     k: int
@@ -47,6 +49,7 @@ class GemmPlan:
     epilogue: EpilogueSpec | None = None
     fused_n_splits: tuple = ()
     vmem_clamped: bool = False
+    weight_format: str = "fp32"
     split_k: int = 1
     decode: bool = False
 
@@ -80,6 +83,11 @@ class GemmPlan:
         return self.epilogue is not None and self.epilogue.glu is not None
 
     @property
+    def quantized(self) -> bool:
+        """True when this plan executes a quantized pack-time format."""
+        return self.weight_format != "fp32"
+
+    @property
     def n_out(self) -> int:
         """Output columns execute() returns: one part for glu, else N."""
         if self.glu:
@@ -93,6 +101,8 @@ class GemmPlan:
             epi = f", epilogue={self.epilogue}"
         if self.fused_n_splits:
             epi += f", fused={self.fused_n_splits}"
+        if self.quantized:
+            epi += f", weight_format={self.weight_format}"
         if self.decode:
             epi += f", lane=decode, split_k={self.split_k}"
         elif self.split_k != 1:

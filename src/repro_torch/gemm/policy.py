@@ -1,4 +1,4 @@
-"""Shape-resolved dispatch policy and the LRU plan cache (fp32 arm).
+"""Shape-resolved dispatch policy and the LRU plan cache.
 
 The paper's two levers, chosen per shape:
 
@@ -7,7 +7,10 @@ The paper's two levers, chosen per shape:
   * N > K   -> ``lever="prepack"``: deep-K blocks, weight packed at load.
 
 The decode arm (``decode_lane()`` scope) pins an 8-row block_m, forces the
-prepack and scores split-K at the canonical decode M.  ``plan()`` resolves
+prepack and scores split-K at the canonical decode M.  The quantized arm
+(``weight_format`` "int8" | "ternary") fits the tile budget with the
+format's bytes per weight element and ``GROUP_K``-aligned block_k, and
+admits only weights quantize-packed at load.  ``plan()`` resolves
 once per key and memoises in a bounded LRU cache.  The policy is the
 reference's, constants included, so plans equal ``repro.gemm.plan``'s.
 """
@@ -29,6 +32,8 @@ from repro_torch.gemm.plan import (EpilogueSpec, GemmPlan, LEVER_FINE_PANELS,
                                    PACK_PREPACKED)
 from repro_torch.kernels import panel_gemm as _kernel
 from repro_torch.kernels import ref as _ref
+from repro_torch.quant.formats import _check_fmt
+from repro_torch.quant.kernels import quant_gate
 
 # Parallel compute units the fine-panel lever scores against (the
 # reference's setting, kept so plans match it).
@@ -123,14 +128,21 @@ def _warn_vmem_clamp(key: tuple, requested: tuple, got: tuple):
 
 
 def _fit_vmem(bm: int, bn: int, bk: int, dtype: str,
-              epilogue: EpilogueSpec | None, split_k: int = 1):
+              epilogue: EpilogueSpec | None, weight_format: str = "fp32",
+              split_k: int = 1):
     """Shrink the block triple until ``vmem_bytes`` fits the budget:
-    the deeper of (block_k, block_n) first, halving toward 128."""
+    the deeper of (block_k, block_n) first, halving toward 128.  A
+    quantized block_k that halving takes off a 128 multiple drops to 128,
+    which keeps whole scale groups and divides every padded K."""
     clamped = False
+    quant = weight_format != "fp32"
     while _kernel.vmem_bytes(bm, bn, bk, dtype, epilogue=epilogue,
+                             weight_format=weight_format,
                              split_k=split_k) > _kernel.VMEM_BUDGET:
         if bk >= bn and bk > 128:
             bk = max(128, bk // 2)
+            if quant and bk % 128:
+                bk = 128
         elif bn > 128:
             bn = max(128, bn // 2)
         elif bm > 8:
@@ -143,6 +155,7 @@ def _fit_vmem(bm: int, bn: int, bk: int, dtype: str,
 
 def _decode_split_k(n: int, k: int, k_pad: int, *, block_m: int,
                     block_n: int, block_k: int, dtype: str, num_cores: int,
+                    weight_format: str,
                     epilogue: EpilogueSpec | None) -> int:
     """The decode arm's split-K winner, scored at the canonical decode M
     (a pure function of (n, k, blocks)); candidates must cut the padded K
@@ -153,6 +166,7 @@ def _decode_split_k(n: int, k: int, k_pad: int, *, block_m: int,
             continue
         if s > 1 and _kernel.vmem_bytes(
                 block_m, block_n, block_k, dtype, epilogue=epilogue,
+                weight_format=weight_format,
                 split_k=s) > _kernel.VMEM_BUDGET:
             continue
         p = scheduler.plan(DECODE_SPLIT_M_REF, n, k, block_m=block_m,
@@ -171,8 +185,8 @@ def _resolve(m: int, n: int, k: int, *, dtype: str, backend: str,
              num_cores: int, block_m: int | None, block_n: int | None,
              block_k: int | None, pack: str | None, transposed: bool,
              validate: bool, epilogue: EpilogueSpec | None = None,
-             fused_n_splits: tuple = (), decode: bool = False,
-             split_k: int | None = None) -> GemmPlan:
+             fused_n_splits: tuple = (), weight_format: str = "fp32",
+             decode: bool = False, split_k: int | None = None) -> GemmPlan:
     bm = block_m or min(_kernel.DEFAULT_BLOCK_M, _rnd_up(m, 8))
     if decode and block_m is None:
         bm = _kernel.DECODE_BLOCK_M
@@ -190,21 +204,33 @@ def _resolve(m: int, n: int, k: int, *, dtype: str, backend: str,
     if decode:
         # decode is weight-bound: the re-layout is paid at load
         default_pack = PACK_PREPACKED
+    if weight_format != "fp32":
+        _check_fmt(weight_format)
+        # a pack-time format: the weight must be quantize-packed at load
+        if pack is not None and pack != PACK_PREPACKED:
+            raise ValueError(
+                f"weight_format={weight_format!r} is a pack-time format; "
+                f"it requires pack={PACK_PREPACKED!r} (got {pack!r})")
+        default_pack = PACK_PREPACKED
     pack = pack or default_pack
     if pack not in (PACK_PREPACKED, PACK_PERCALL, PACK_NONE):
         raise ValueError(f"unknown pack decision {pack!r}")
     req = (bm, bn, bk)
     bm, bn, bk, clamped = _fit_vmem(bm, bn, bk, dtype, epilogue,
+                                    weight_format,
                                     1 if split_k is None else int(split_k))
     if clamped:
-        _warn_vmem_clamp((m, n, k, dtype, backend), req, (bm, bn, bk))
+        _warn_vmem_clamp((m, n, k, dtype, backend, weight_format), req,
+                         (bm, bn, bk))
     grid_backend = _backends.get_backend(backend).needs_blocks
     k_pad = _rnd_up(k, bk) if (pack != PACK_NONE or grid_backend) else k
     if split_k is None:
         # the split lever targets the panel-grid backends only
         split_k = (_decode_split_k(n, k, k_pad, block_m=bm, block_n=bn,
                                    block_k=bk, dtype=dtype,
-                                   num_cores=num_cores, epilogue=epilogue)
+                                   num_cores=num_cores,
+                                   weight_format=weight_format,
+                                   epilogue=epilogue)
                    if decode and grid_backend else 1)
     split_k = int(split_k)
     if split_k < 1 or k_pad % split_k or (split_k > 1
@@ -216,11 +242,17 @@ def _resolve(m: int, n: int, k: int, *, dtype: str, backend: str,
                            num_cores=num_cores, split_k=split_k)
     validated = False
     if validate:
-        if not _bitexact_gate(bm, bn, bk, epilogue=epilogue,
-                              split_k=split_k):
+        if weight_format != "fp32":
+            ok = quant_gate(bm, bn, bk, weight_format, epilogue=epilogue,
+                            split_k=split_k)
+        else:
+            ok = _bitexact_gate(bm, bn, bk, epilogue=epilogue,
+                                split_k=split_k)
+        if not ok:
             raise RuntimeError(
                 f"blocks ({bm},{bn},{bk}) failed the bit-exactness gate "
-                f"(epilogue={epilogue}, split_k={split_k})")
+                f"(epilogue={epilogue}, weight_format={weight_format}, "
+                f"split_k={split_k})")
         validated = True
     return GemmPlan(m=m, n=n, k=k, dtype=dtype, backend=backend,
                     block_m=bm, block_n=bn, block_k=bk, pack=pack,
@@ -228,7 +260,8 @@ def _resolve(m: int, n: int, k: int, *, dtype: str, backend: str,
                     occupancy=sched.occupancy, transposed=transposed,
                     validated=validated, epilogue=epilogue,
                     fused_n_splits=fused_n_splits, vmem_clamped=clamped,
-                    split_k=split_k, decode=decode)
+                    weight_format=weight_format, split_k=split_k,
+                    decode=decode)
 
 
 # --------------------------------------- chunked-prefill plan-key buckets
@@ -299,14 +332,16 @@ def plan(m: int, n: int, k: int, *, dtype: Any = torch.float32,
          block_k: int | None = None, pack: str | None = None,
          transposed: bool = False, validate: bool = False,
          epilogue: EpilogueSpec | None = None, fused_n_splits: tuple = (),
-         decode: bool | None = None, split_k: int | None = None) -> GemmPlan:
+         weight_format: str = "fp32", decode: bool | None = None,
+         split_k: int | None = None) -> GemmPlan:
     """Resolve (and cache) the dispatch plan for ``[m,k] @ [k,n]``.
 
     ``backend=None`` takes the innermost ``use_backend`` scope, else the
     default for ``device`` (``cuda`` for a CUDA device, ``plain``
     otherwise).  Explicit ``block_*`` / ``pack`` override the policy;
-    ``validate=True`` runs the bit-exactness gate.  ``decode=None`` reads
-    the ambient :func:`decode_lane` scope."""
+    ``validate=True`` runs the bit-exactness gate (``quant_gate`` for a
+    quantized ``weight_format``).  ``decode=None`` reads the ambient
+    :func:`decode_lane` scope."""
     if decode is None:
         decode = in_decode_lane()
     backend = _backends.resolve_backend(backend, device)
@@ -316,7 +351,7 @@ def plan(m: int, n: int, k: int, *, dtype: Any = torch.float32,
     fused_n_splits = tuple(int(s) for s in fused_n_splits)
     key = (int(m), int(n), int(k), dtype, backend, num_cores, block_m,
            block_n, block_k, pack, bool(transposed), bool(validate),
-           epilogue, fused_n_splits, bool(decode), split_k)
+           epilogue, fused_n_splits, weight_format, bool(decode), split_k)
     with _cache_lock:
         hit = _cache.get(key)
         if hit is not None:
@@ -328,8 +363,8 @@ def plan(m: int, n: int, k: int, *, dtype: Any = torch.float32,
                  num_cores=num_cores, block_m=block_m, block_n=block_n,
                  block_k=block_k, pack=pack, transposed=bool(transposed),
                  validate=validate, epilogue=epilogue,
-                 fused_n_splits=fused_n_splits, decode=bool(decode),
-                 split_k=split_k)
+                 fused_n_splits=fused_n_splits, weight_format=weight_format,
+                 decode=bool(decode), split_k=split_k)
     with _cache_lock:
         _cache[key] = p
         _cache.move_to_end(key)
@@ -345,21 +380,28 @@ def plan_for_packed(m: int, pw: packing.PackedWeight, *,
                     epilogue: EpilogueSpec | None = None,
                     decode: bool | None = None) -> GemmPlan:
     """Plan for a weight packed at load: the pack's blocks are adopted,
-    its split map and the requested epilogue ride onto the plan, and the
-    default backend follows the pack's device."""
-    return plan(m, pw.n, pw.k, dtype=pw.dtype, backend=backend,
-                device=pw.device, num_cores=num_cores, block_n=pw.block_n,
-                block_k=pw.block_k, pack=PACK_PREPACKED, validate=validate,
-                epilogue=epilogue, fused_n_splits=pw.n_splits,
+    its split map, its quantized format (``weight_format``) and the
+    requested epilogue ride onto the plan, and the default backend follows
+    the pack's device.  A quantized pack keys as the fp32 its dequant
+    produces (codes are not an operand dtype)."""
+    fmt = getattr(pw, "fmt", "fp32")
+    return plan(m, pw.n, pw.k,
+                dtype=pw.dtype if fmt == "fp32" else torch.float32,
+                backend=backend, device=pw.device, num_cores=num_cores,
+                block_n=pw.block_n, block_k=pw.block_k, pack=PACK_PREPACKED,
+                validate=validate, epilogue=epilogue,
+                fused_n_splits=pw.n_splits, weight_format=fmt,
                 decode=decode)
 
 
 def pack_blocks(n: int, k: int, *, m_hint: int = 128,
                 block_n: int | None = None, block_k: int | None = None,
                 num_cores: int = DEFAULT_NUM_CORES,
-                epilogue: EpilogueSpec | None = None) -> tuple[int, int]:
+                epilogue: EpilogueSpec | None = None,
+                weight_format: str = "fp32") -> tuple[int, int]:
     """The load-time pack decision, policy-resolved: (block_n, block_k)
-    for a [k, n] weight at the serving M ``m_hint``."""
+    for a [k, n] weight at the serving M ``m_hint``, in its pack format."""
     p = plan(m_hint, n, k, block_n=block_n, block_k=block_k,
-             num_cores=num_cores, epilogue=epilogue)
+             num_cores=num_cores, epilogue=epilogue,
+             weight_format=weight_format)
     return p.block_n, p.block_k

@@ -2,7 +2,8 @@
 
 Each source is compiled by ``nvcc`` into a shared library with a plain C
 interface under ``build/`` at the root of the checkout, named by a hash
-of the source so an edited kernel is rebuilt, and loaded with ``ctypes``.
+of the source and the headers it may include (``csrc/*.cuh``) so an
+edited kernel is rebuilt, and loaded with ``ctypes``.
 Nothing is built when this module is imported: the first kernel launch
 (or an explicit :func:`build`) compiles.  There is no fallback: a build
 that fails raises with the compiler's output.
@@ -32,6 +33,12 @@ SIGNATURES = {
                              _I, _I, _I, _F, _F, _P),
         "repro_panel_gemm_splitk": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
     },
+    "quant_gemm": {
+        "repro_quant_panel_gemm": (_P, _I, _P, _P, _I, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _I, _I, _I, _F, _F, _P),
+        "repro_quant_panel_gemm_splitk": (_P, _I, _P, _P, _I, _P, _I, _I,
+                                          _I, _I, _P),
+    },
 }
 
 _LOCK = threading.Lock()
@@ -51,9 +58,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

@@ -182,24 +182,34 @@ def _itemsize(dtype) -> int:
 def vmem_bytes(block_m: int, block_n: int, block_k: int,
                in_dtype=torch.float32, *,
                epilogue: EpilogueSpec | None = None,
+               weight_format: str = "fp32",
                split_k: int = 1) -> int:
-    """The reference's tile-footprint model for one grid step of an fp32
-    pack (double-buffered inputs), which the policy clamps blocks
-    against.  The CUDA kernels tile with their own smaller CTA tiles; the
-    model stays so that the port's plans equal the reference's."""
+    """The reference's tile-footprint model for one grid step
+    (double-buffered inputs), which the policy clamps blocks against.  A
+    quantized pack streams ``weight_itemsize`` bytes per weight element
+    plus its fp32 scale rows.  The CUDA kernels tile with their own
+    smaller CTA tiles; the model stays so that the port's plans equal the
+    reference's."""
     isz = _itemsize(in_dtype)
     x = block_m * block_k * isz
-    w = block_k * block_n * isz
+    if weight_format == "fp32":
+        w = block_k * block_n * isz
+        scales = 0
+    else:
+        from repro_torch.quant.formats import GROUP_K, weight_itemsize
+        w = int(block_k * block_n * weight_itemsize(weight_format))
+        scales = max(1, block_k // GROUP_K) * block_n * 4
     acc = block_m * block_n * 4
     out = block_m * block_n * isz
     glu = epilogue is not None and epilogue.glu is not None
     if glu:
         w *= 2
+        scales *= 2
         acc *= 2
     extra = block_n * 4 * (2 if glu else 1) + block_m * block_n * 4
     if split_k > 1:
         extra += split_k * block_m * block_n * 4
-    return 2 * (x + w) + acc + out + extra
+    return 2 * (x + w + scales) + acc + out + extra
 
 
 # --------------------------------------------------------- operand checks
@@ -207,15 +217,16 @@ def _spec(epilogue: EpilogueSpec | None) -> EpilogueSpec | None:
     return None if epilogue is None or epilogue.is_noop else epilogue
 
 
-def _geometry(x, w, bias, residual, spec, *, block_m, block_n, block_k,
-              split_k=1):
+def _geometry(x, w_shape, bias, residual, spec, *, block_m, block_n,
+              block_k, split_k=1):
     """Shapes against blocks (the reference's asserts, raised as
-    ValueError); returns (m, k, n, n_out)."""
-    if x.dim() != 2 or w.dim() != 2:
+    ValueError); ``w_shape`` is the (unpacked) weight's [K, N].  Returns
+    (m, k, n, n_out)."""
+    if x.dim() != 2 or len(w_shape) != 2:
         raise ValueError(f"x and w must be 2-D; got {tuple(x.shape)} and "
-                         f"{tuple(w.shape)}")
+                         f"{tuple(w_shape)}")
     m, k = x.shape
-    k2, n = w.shape
+    k2, n = w_shape
     if k != k2:
         raise ValueError(f"contraction mismatch {k} vs {k2}")
     if split_k < 1 or k % split_k:
@@ -301,8 +312,9 @@ def panel_gemm(x, w, bias=None, residual=None, *,
     operands launch ``repro_panel_gemm``; CPU operands run
     :func:`panel_gemm_plain`."""
     spec = _spec(epilogue)
-    m, k, n, n_out = _geometry(x, w, bias, residual, spec, block_m=block_m,
-                               block_n=block_n, block_k=block_k)
+    m, k, n, n_out = _geometry(x, tuple(w.shape), bias, residual, spec,
+                               block_m=block_m, block_n=block_n,
+                               block_k=block_k)
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return panel_gemm_plain(x, w, bias, residual, block_k=block_k,
@@ -352,9 +364,9 @@ def panel_gemm_splitk(x, w, bias=None, residual=None, *, split_k: int,
     run as plain torch ops, as in the reference.  CPU operands run
     :func:`panel_gemm_splitk_plain`."""
     spec = _spec(epilogue)
-    m, k, n, _ = _geometry(x, w, bias, residual, spec, block_m=block_m,
-                           block_n=block_n, block_k=block_k,
-                           split_k=split_k)
+    m, k, n, _ = _geometry(x, tuple(w.shape), bias, residual, spec,
+                           block_m=block_m, block_n=block_n,
+                           block_k=block_k, split_k=split_k)
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return panel_gemm_splitk_plain(x, w, bias, residual,

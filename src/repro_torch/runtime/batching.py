@@ -55,6 +55,9 @@ class ServeStats:
     decode_s: float = 0.0
     wall_s: float = 0.0
     fused: bool | None = None
+    quant: str | None = None            # as GenStats
+    quant_density: float | None = None
+    quant_sparse_packs: int = 0
     plan_cache: tuple | None = None
     vmem_clamped_plans: int = 0
     requests: list[RequestStats] = dataclasses.field(default_factory=list)

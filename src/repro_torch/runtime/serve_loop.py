@@ -1,7 +1,8 @@
 """Serving engine: the paper's deployment discipline as a class.
 
 ``__init__`` is the untimed model-load phase: every projection weight is
-packed once (paper §3.2) on the engine's device.  ``prefill`` /
+packed once (paper §3.2) on the engine's device, quantized at pack time
+when the engine serves a quantized format (``quant=``).  ``prefill`` /
 ``decode`` then pay only the compute loop; ``generate`` runs them per
 request batch, and ``serve`` runs real continuous batching
 (``runtime/batching``) over a paged KV cache, with outputs equal to
@@ -22,6 +23,7 @@ import torch
 from repro_torch import gemm as gemm_api
 from repro_torch.device import resolve_device
 from repro_torch.models import model_zoo, transformer
+from repro_torch.quant.formats import QuantizedPackedWeight
 from repro_torch.runtime.batching import _sync
 
 
@@ -30,12 +32,19 @@ class GenStats:
     """Token accounting for ``generate``: ``prefill_tokens`` counts prompt
     tokens processed, ``decode_tokens`` tokens emitted (rows x
     max_new_tokens, the prefill-sampled first token included).  Phase
-    times end in a device sync."""
+    times end in a device sync.  ``quant`` is the engine's quantized
+    format (None: fp32), ``quant_density`` the mean occupied-group
+    fraction of its quantized packs (1.0 for the dense layouts; None
+    without quantized packs) and ``quant_sparse_packs`` how many are on
+    the compressed sparse-ternary layout (not ported yet: always 0)."""
     prefill_tokens: int = 0
     decode_tokens: int = 0
     prefill_s: float = 0.0
     decode_s: float = 0.0
     fused: bool | None = None
+    quant: str | None = None
+    quant_density: float | None = None
+    quant_sparse_packs: int = 0
     plan_cache: tuple | None = None
     vmem_clamped_plans: int = 0
 
@@ -48,25 +57,50 @@ class GenStats:
         return self.decode_tokens / max(self.decode_s, 1e-9)
 
 
+def _any_quantized(node) -> bool:
+    if isinstance(node, dict):
+        return any(_any_quantized(v) for v in node.values())
+    if isinstance(node, list):
+        return any(_any_quantized(v) for v in node)
+    return isinstance(node, QuantizedPackedWeight)
+
+
 class Engine:
     def __init__(self, cfg, params, *, max_len: int = 2048,
                  backend: str | None = None, fuse: bool = True, device=None,
-                 consume: bool = False):
+                 consume: bool = False, quant: str | None = None,
+                 keep_fp32=("head", "embed")):
         """``device``: CUDA unless the caller asks for the CPU; ``params``
         are moved there as they are packed.  ``backend`` pins the GEMM
         backend (default: ``cuda`` on a CUDA device, ``plain`` on the
         CPU).  ``fuse`` packs Q/K/V and gate+up as fused groups.
         ``consume=True`` lets the pack release each raw weight of
-        ``params`` as soon as its pack exists (full-size models)."""
+        ``params`` as soon as its pack exists (full-size models).
+
+        ``quant`` ("int8" | "ternary") serves the model on quantized
+        packs: every projection quantizes at load except the
+        ``keep_fp32`` roles (default: the LM head and the embeddings),
+        its GEMMs run the dequant-fused kernels, and the error ledger
+        gates each pack.  (The engine always packs, so the reference's
+        "quant requires packed" case cannot arise.)"""
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_len = max_len
         self.fused = fuse
+        self.quant = quant
         self.backend = backend or ("cuda" if self.device.type == "cuda"
                                    else "plain")
         gemm_api.get_backend(self.backend)          # fail fast on a typo
         self.params = model_zoo.pack_for_inference(
-            cfg, params, fuse=fuse, device=self.device, consume=consume)
+            cfg, params, fuse=fuse, device=self.device, consume=consume,
+            quant=quant, keep_fp32=keep_fp32)
+        # every quantized pack is on a dense layout: all groups occupied
+        self.quant_density = 1.0 if _any_quantized(self.params) else None
+
+    def _stamp(self, stats):
+        stats.fused = self.fused
+        stats.quant = self.quant
+        stats.quant_density = self.quant_density
 
     @contextlib.contextmanager
     def _scope(self, decode: bool):
@@ -133,7 +167,7 @@ class Engine:
         """Greedy continuation of ``prompts`` [B, S0].  Returns (tokens
         [B, max_new_tokens] on the device, stats)."""
         stats = stats if stats is not None else GenStats()
-        stats.fused = self.fused
+        self._stamp(stats)
         prompts = self._tokens(prompts)
         b, s0 = prompts.shape
         t0 = time.perf_counter()
@@ -169,7 +203,7 @@ class Engine:
             page_size=page_size, num_pages=num_pages,
             check_invariants=check_invariants)
         outs, stats = sched.run(requests, max_new_tokens)
-        stats.fused = self.fused
+        self._stamp(stats)
         stats.plan_cache = gemm_api.plan_cache_info()
         stats.vmem_clamped_plans = gemm_api.vmem_clamped_count()
         return outs, stats
